@@ -1,6 +1,6 @@
-"""phylign-tpu: TPU-native alignment of reads against the 661k bacterial genome collection.
+"""phylign-tpu: GPU-accelerated alignment of reads against the 661k bacterial genome collection.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 karel-brinda/Phylign (reference: /root/reference): a match -> filter -> align
 workflow over phylogenetically-compressed genome batches.
 
@@ -9,7 +9,7 @@ Subsystems
 - ``phylign_tpu.io``       host IO: FASTA/FASTQ, COBS classic indexes, assembly
                            tarballs, SAM emission/aggregation, stats.
 - ``phylign_tpu.kmer``     2-bit DNA encoding, canonical k-mers, XXH64 hashing.
-- ``phylign_tpu.ops``      Pallas/JAX device kernels: bit-matrix popcount match,
+- ``phylign_tpu.ops``      JAX device kernels: bit-matrix popcount match,
                            top-k filtering, minimizers, chaining, banded align.
 - ``phylign_tpu.models``   flagship jittable "models": Matcher (k-mer
                            containment scoring) and Aligner (seed-chain-extend).

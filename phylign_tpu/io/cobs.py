@@ -362,11 +362,11 @@ def build_index_from_tar(
 
 @dataclass
 class DeviceIndex:
-    """TPU-friendly packed index: uint32 word matrix + metadata.
+    """Device-layout packed index: uint32 word matrix + metadata.
 
     words[s, w] bit (d % 32) of word (d // 32) == doc d's bit in Bloom row s.
-    The word matrix is what the Pallas match kernel gathers rows from; its
-    column (word) axis is the unit of genome-document sharding across chips.
+    The word matrix is what the match kernel gathers rows from; its column
+    (word) axis is the unit of genome-document sharding across devices.
     """
 
     term_size: int

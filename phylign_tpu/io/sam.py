@@ -15,6 +15,7 @@ Output contracts mirrored from the reference:
 from __future__ import annotations
 
 import gzip
+import io
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -126,10 +127,12 @@ def unmapped_record(qname: str, seq: str) -> SamRecord:
 
 
 def write_batch_sam(path: str | os.PathLike, records: Iterable[SamRecord]) -> None:
-    """Headerless SAM, gzip --fast equivalent."""
-    with gzip.open(str(path), "wt", compresslevel=1) as f:
-        for r in records:
-            f.write(r.to_line() + "\n")
+    """Headerless SAM, gzip --fast equivalent. The gzip header's mtime is
+    fixed at 0, so the same records always give the same bytes."""
+    with gzip.GzipFile(str(path), "wb", compresslevel=1, mtime=0) as gz:
+        with io.TextIOWrapper(gz, encoding="utf-8") as f:
+            for r in records:
+                f.write(r.to_line() + "\n")
 
 
 def aggregate_sams(
@@ -148,7 +151,7 @@ def aggregate_sams(
     with open(str(out_path), "wb") as out:
         for i, (p, text) in enumerate(zip(batch_sam_paths, texts)):
             banner = ("" if i == 0 else "\n") + f"==> {text} <==\n"
-            out.write(gzip.compress(banner.encode(), compresslevel=1))
+            out.write(gzip.compress(banner.encode(), compresslevel=1, mtime=0))
             with open(str(p), "rb") as f:
                 out.write(f.read())
 

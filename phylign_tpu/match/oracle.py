@@ -1,6 +1,6 @@
 """Slow-but-obviously-correct numpy reference for the match stage.
 
-This is the parity oracle the TPU kernels are tested against (the real
+This is the parity oracle the device kernels are tested against (the real
 ``cobs`` binary and Zenodo indexes are unreachable in this environment; this
 module plays the role the golden intermediates play in the reference's test
 strategy, SURVEY.md section 4).

@@ -1,7 +1,7 @@
 // Native host-side kernels for phylign-tpu.
 //
 // The reference delegates all host hot loops to native binaries (COBS C++,
-// minimap2 C, seqtk C; SURVEY.md section 2b). This library is the TPU
+// minimap2 C, seqtk C; SURVEY.md section 2b). This library is this
 // build's native host layer: the CPU-bound preprocessing that feeds the
 // device kernels —
 //   * 2-bit DNA encoding (seqtk-equivalent normalization),
@@ -25,8 +25,8 @@
 
 // Run fn(begin, end) over [0, n) split into contiguous ranges, one per
 // worker thread. ctypes releases the GIL around every call into this
-// library, so threading here is real parallelism on many-core TPU hosts
-// (the production target; this dev VM has 2 vCPUs). Thread count:
+// library, so threading here is real parallelism on many-core GPU hosts.
+// Thread count:
 // PHYLIGN_TPU_NATIVE_THREADS env override, else hardware_concurrency,
 // capped at 16; small inputs run inline (thread spawn ~50 us each).
 template <typename F>

@@ -1,1 +1,1 @@
-"""Device kernels (Pallas + XLA): match popcount, top-k, minimizers, chain, align."""
+"""Device kernels (XLA): match popcount, top-k, minimizers, chain, align."""

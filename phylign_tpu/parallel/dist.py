@@ -21,23 +21,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-try:  # jax >= 0.6 public API
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
 
 
 def shard_map(f, mesh, in_specs, out_specs):
     # check_vma=False: kernel bodies create fresh carries (zeros) that the
     # varying-manual-axes checker would otherwise flag against sharded inputs
-    try:
-        return _shard_map(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
-        )
-    except TypeError:  # pragma: no cover - older jax spelling
-        return _shard_map(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False
-        )
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
+    )
 
 from phylign_tpu.ops.chain import chain_anchors
 from phylign_tpu.ops.extend import (
@@ -57,7 +48,7 @@ def global_array(mesh, arr, spec: P):
     """A mesh-global device array from a host array every process holds.
 
     Single-process this is device_put with a NamedSharding; multi-process
-    (jax.distributed over DCN) each process contributes exactly the shards
+    (jax.distributed) each process contributes exactly the shards
     its local devices own — the only portable way to build an array on a
     mesh that spans processes."""
     import numpy as np

@@ -3,11 +3,11 @@
 The reference's multi-node story is cluster submission with a shared
 filesystem (ref: /root/reference/Makefile:118-131, scripts/submit_lsf.sh):
 every node runs the same pipeline over a disjoint subset of batches and the
-filesystem is the only data plane. The TPU build keeps that
+filesystem is the only data plane. This build keeps that
 embarrassingly-parallel outer axis (batch sharding across processes) and adds
-a real distributed backend for the inner mesh: `jax.distributed` over
-ICI/DCN, so one process group can also form a single multi-host mesh
-(parallel.mesh) when chips span hosts.
+a real distributed backend for the inner mesh: `jax.distributed`, so one
+process group can also form a single multi-host mesh (parallel.mesh) when
+cards span hosts (NCCL carries the collectives between GPUs).
 
 Environment autodetection covers SLURM and LSF (the reference's two
 backends) plus explicit settings.
@@ -56,12 +56,8 @@ def init_distributed(
     import jax
 
     # CPU backends need an explicit cross-process collectives implementation
-    # (TPU slices get collectives from the platform itself); must be set
-    # before the backend initializes
-    try:
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # pragma: no cover - older jax without the option
-        pass
+    # (GPUs use NCCL); must be set before the backend initializes
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     addr = f"{coordinator}:{port}" if coordinator and ":" not in str(coordinator) else coordinator
     log.info(
         "jax.distributed.initialize(%s, num_processes=%d, process_id=%d)",

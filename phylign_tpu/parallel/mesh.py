@@ -1,17 +1,19 @@
 """Device mesh construction for the match->filter->align workflow.
 
 The reference's only parallelism is batch-level job scheduling over a shared
-filesystem (SURVEY.md section 2c); it has no distributed backend. The TPU
+filesystem (SURVEY.md section 2c); it has no distributed backend. This
 build introduces one, with two mesh axes:
 
   "d" (doc shards)   genome-document columns of the Bloom bit-matrix are
-                     sharded across chips — the model/tensor-parallel axis.
+                     sharded across devices — the model/tensor-parallel
+                     axis.
                      The filter stage's top-k runs as a collective over "d".
-  "q" (query shards) query streams are data-parallel across chips.
+  "q" (query shards) query streams are data-parallel across devices.
 
-Collectives ride ICI inside a slice; across hosts the same program runs under
-jax.distributed with the mesh spanning all processes (DCN for "q", ICI-major
-layout for "d").
+The cards of one host are joined all to all (NVLink), so the mesh layout
+follows the algorithm alone; XLA hands the collectives to NCCL. Across hosts
+the same program runs under jax.distributed with the mesh spanning all
+processes.
 """
 
 from __future__ import annotations

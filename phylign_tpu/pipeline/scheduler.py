@@ -10,8 +10,8 @@ Here: an in-process thread pool over host-bound work (xz decode, tar
 streaming, CIGAR traceback) with
   * a RAM accountant (condition variable over a byte budget),
   * an IO-heavy semaphore,
-  * a device lock serializing TPU submissions (one chip; the multi-chip path
-    lives in phylign_tpu.parallel instead),
+  * a device lock serializing device submissions (one device; the
+    multi-device path lives in phylign_tpu.parallel instead),
   * per-job retry with doubled RAM reservation.
 Priorities mirror the reference's ``priority: 999`` on match jobs
 (Snakefile:413): higher runs first.
@@ -119,15 +119,21 @@ class Scheduler:
         workers: int,
         max_ram_mb: int,
         max_io_heavy: int,
-        hbm_mb: int = 12 * 1024,
+        hbm_mb: int | None = None,
     ):
+        """``hbm_mb``: device-memory budget; None takes what JAX may
+        allocate on the device (utils.platform.device_memory_mb)."""
+        if hbm_mb is None:
+            from phylign_tpu.utils.platform import device_memory_mb
+
+            hbm_mb = device_memory_mb()
         self.workers = max(1, workers)
         self.ram = RamPool(max_ram_mb)
         self.io_sem = threading.Semaphore(max(1, max_io_heavy))
         self.device_lock = threading.Lock()
         # Align flushes interleave host phases (selection, traceback) with
         # device phases inside one call; two slots let one batch's host work
-        # overlap another's device round trips while still bounding
+        # overlap another's device phases while still bounding
         # concurrent device buffers (the plane pass can reach ~0.5 GB).
         self.device_slots = threading.BoundedSemaphore(2)
         # Device-memory accountant: index uploads reserve HBM bytes *before*

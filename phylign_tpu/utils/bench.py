@@ -5,7 +5,8 @@ The reference wraps every heavy rule with scripts/benchmark.py, logging
 rows to logs/benchmarks/{rule}/{wildcards}.txt
 (ref: /root/reference/scripts/benchmark.py:17-46, Snakefile:384,418,...).
 Same file layout and column spirit here, measured in-process: wall time,
-CPU split from resource.getrusage deltas, peak RSS via psutil.
+CPU split, peak RSS and block I/O counts (GNU time's FS inputs/outputs)
+from resource.getrusage; system RAM from /proc/meminfo.
 """
 
 from __future__ import annotations
@@ -17,12 +18,17 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
-try:
-    import psutil
-except ImportError:  # pragma: no cover
-    psutil = None
-
 HEADER = "real(s)\tsys(s)\tuser(s)\tpercent_CPU\tmax_RAM(kb)\tFS_inputs\tFS_outputs\twall_clock"
+
+
+def used_ram_kb(meminfo: str | os.PathLike = "/proc/meminfo") -> int:
+    """Used system memory in kB: MemTotal - MemAvailable."""
+    fields = {}
+    with open(meminfo) as f:
+        for line in f:
+            name, _, rest = line.partition(":")
+            fields[name] = int(rest.split()[0])
+    return fields["MemTotal"] - fields["MemAvailable"]
 
 
 class RamSampler:
@@ -38,16 +44,14 @@ class RamSampler:
         self.max_delta_kb = 0
 
     def __enter__(self):
-        if psutil is None:
-            return self
         import threading
 
-        self.baseline_kb = psutil.virtual_memory().used // 1024
+        self.baseline_kb = used_ram_kb()
         self._stop = threading.Event()
 
         def poll():
             while not self._stop.wait(self.interval):
-                used = psutil.virtual_memory().used // 1024
+                used = used_ram_kb()
                 self.max_delta_kb = max(self.max_delta_kb, used - self.baseline_kb)
 
         self._thread = threading.Thread(target=poll, daemon=True, name="ram-sampler")
@@ -70,7 +74,6 @@ def benchmark(logs_dir: str | os.PathLike, rule: str, wildcards: str):
     path = out / f"{wildcards}.txt"
 
     r0 = resource.getrusage(resource.RUSAGE_SELF)
-    io0 = psutil.Process().io_counters() if psutil and hasattr(psutil.Process(), "io_counters") else None
     t0 = time.perf_counter()
     try:
         yield
@@ -81,11 +84,8 @@ def benchmark(logs_dir: str | os.PathLike, rule: str, wildcards: str):
         user_s = r1.ru_utime - r0.ru_utime
         pct = int(100 * (sys_s + user_s) / dt) if dt > 0 else 0
         max_rss_kb = r1.ru_maxrss  # linux: kb
-        if io0 is not None:
-            io1 = psutil.Process().io_counters()
-            fs_in, fs_out = io1.read_count - io0.read_count, io1.write_count - io0.write_count
-        else:
-            fs_in = fs_out = 0
+        fs_in = r1.ru_inblock - r0.ru_inblock
+        fs_out = r1.ru_oublock - r0.ru_oublock
         wall = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S")
         new = not path.exists()
         with open(path, "a") as f:

@@ -6,7 +6,7 @@ decoded-genome assembly cache (``02_asms_decoded/{stem}.{json,codes}``,
 io.asmtar.open_asm_cache). The reference documents an explicit ~120 GB
 disk contract for a full-database run (ref: /root/reference/README.md:95-96)
 and marks its decompressed-index cache opt-in (config.yaml:131-138); this
-module is the analogue for the TPU build: a single byte budget across both
+module is the analogue for this build: a single byte budget across both
 caches, evicting least-recently-*used* batch entries first.
 
 Recency comes from the entry's metadata-file mtime, which the cache open

@@ -1,16 +1,17 @@
-"""Real-geometry rehearsal: pseudomonas_aeruginosa__01-scale match scoring.
+"""Real-geometry rehearsal of the row-chunked match path.
 
 The largest real 661k batch decompresses to ~10.59 GB: ~39M Bloom rows x
 2,169 documents (computed from
 /root/reference/data/decompressed_indexes_sizes.txt — the reference's RAM
-accountant input, Snakefile:41-82). That exceeds the resident-index HBM
-budget, so the pipeline streams it through models.matcher.ChunkedMatcher
-(stages._score_batch_chunked). This script measures that path AT SCALE on
-the real chip: queries/s, streamed rows/s, and device memory, within the
-default 12 GB device_hbm_gb budget.
+accountant input, Snakefile:41-82). On a card whose device budget
+(``device_hbm_gb``) cannot hold it resident, the pipeline streams it through
+models.matcher.ChunkedMatcher (stages._score_batch_chunked). This script
+measures that path at scale within a given per-chunk budget: queries/s,
+streamed rows/s and device memory. (The resident path at the same geometry
+is phase 4 of chip_smoke.py.)
 
 Run:  python scripts/dev/real_geometry_rehearsal.py [--rows 39000000]
-Writes a JSON line to stdout; paste results into docs/performance.md.
+Writes a JSON line to stdout.
 """
 
 import argparse
@@ -30,8 +31,8 @@ def main() -> None:
     ap.add_argument("--docs", type=int, default=2_169)
     ap.add_argument("--reads", type=int, default=10_240)
     ap.add_argument("--budget-mb", type=int, default=2048,
-                    help="per-chunk HBM budget (stages.py uses "
-                    "device_hbm_gb - align reserve)")
+                    help="per-chunk device-memory budget (stages.py uses "
+                    "the device budget minus the align reserve)")
     ap.add_argument("--threshold", type=float, default=0.7)
     ap.add_argument("--topn", type=int, default=100)
     args = ap.parse_args()

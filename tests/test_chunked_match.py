@@ -1,9 +1,9 @@
-"""Row-chunked scoring for indexes larger than the HBM budget.
+"""Row-chunked scoring for indexes larger than the device-memory budget.
 
 The largest real batch decompresses to 10.59 GB
-(/root/reference/data/decompressed_indexes_sizes.txt) against the
-reference's documented 12 GB minimum RAM (README.md:94-95); single-chip the
-index cannot sit resident next to the align stage's device buffers.
+(/root/reference/data/decompressed_indexes_sizes.txt); on a device whose
+budget is smaller the index cannot sit resident next to the align stage's
+device buffers.
 ChunkedMatcher streams signature-row blocks through the device and
 accumulates scores — these tests pin bit-exactness vs the resident Matcher
 and that the pipeline routes oversized indexes through it.
@@ -140,9 +140,8 @@ class TestRatioPreservingGeometry:
         batch is ~39M rows x 2,169 docs = ~18k rows/doc; this test keeps
         that ratio (1.8M rows x 100 docs, ~23 MB packed) and forces the
         stream through >= 8 row blocks, asserting bit-identical hits vs the
-        resident matcher. The full-size run on the real chip is
-        scripts/dev/real_geometry_rehearsal.py (measured in
-        docs/performance.md)."""
+        resident matcher. The full-size streamed run on a GPU is
+        scripts/dev/real_geometry_rehearsal.py."""
         from phylign_tpu.kmer import cobs_kmer_hashes_batch
 
         rng = np.random.default_rng(9)

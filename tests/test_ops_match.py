@@ -4,7 +4,7 @@ import pytest
 import jax.numpy as jnp
 
 from phylign_tpu.io import cobs
-from phylign_tpu.kmer import encode_seq
+from phylign_tpu.kmer import cobs_row_indices, encode_seq
 from phylign_tpu.match import oracle
 from phylign_tpu.models.matcher import Matcher, match_step
 from phylign_tpu.ops import match as opm
@@ -29,7 +29,7 @@ def fixture_index():
 class TestMatchScoresXLA:
     def test_matches_oracle(self, fixture_index):
         didx, reads = fixture_index
-        m = Matcher.from_device_index(didx, use_pallas=False)
+        m = Matcher.from_device_index(didx)
         scores, keep, n_kmers = m.score([r for r in reads], threshold=0.7)
         assert n_kmers[0] == 120
         for i, r in enumerate(reads):
@@ -44,7 +44,7 @@ class TestMatchScoresXLA:
         docs = [("a_X1", [seq]), ("b_X2", [rand_seq(rng, 120)])]
         idx = cobs.build_classic_index(docs, term_size=31, num_hashes=3, fpr=0.01)
         didx = cobs.to_device_index(idx)
-        m = Matcher.from_device_index(didx, use_pallas=False)
+        m = Matcher.from_device_index(didx)
         scores, keep, nk = m.score([seq], threshold=0.7)
         want, _ = oracle.score_query_codes(didx, encode_seq(seq))
         np.testing.assert_array_equal(scores[0], want)
@@ -52,41 +52,71 @@ class TestMatchScoresXLA:
 
     def test_short_and_empty_queries(self, fixture_index):
         didx, reads = fixture_index
-        m = Matcher.from_device_index(didx, use_pallas=False)
+        m = Matcher.from_device_index(didx)
         scores, keep, nk = m.score([b"ACG", reads[0]], threshold=0.7)
         assert nk[0] == 0
         assert scores[0].sum() == 0
         assert not keep[0].any()  # no kmers -> no hits, not all-hits
 
 
-class TestMatchScoresPallas:
-    def test_interpret_matches_xla(self, fixture_index):
-        didx, reads = fixture_index
-        words = jnp.asarray(opm.pad_device_words(np.asarray(didx.words), lane_words=opm.LANE_WORDS))
-        m = Matcher.from_device_index(didx, use_pallas=False)
-        row_idx, n_kmers = m.rows_for_queries([r for r in reads[:4]], k_max=128)
-        want = opm.match_scores_xla(words, jnp.asarray(row_idx))
-        got = opm.match_scores_pallas(words, jnp.asarray(row_idx), interpret=True)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+def _real_width_case(case):
+    """A 2,169-doc index (Wp = 68 words, the real batch width) with random
+    bits, plus queries and their packed [Q, K, H] row slots."""
+    rng = np.random.default_rng(11)
+    d, s, h = 2169, 4096, 2 if case == "two_hashes" else 1
+    words = rng.integers(0, 2**32, (s, (d + 31) // 32), dtype=np.uint32)
+    didx = cobs.DeviceIndex(
+        term_size=31, num_hashes=h, signature_size=s,
+        doc_names=[f"r{i}_D{i:05d}" for i in range(d)], words=words,
+    )
+    q = 13  # not a multiple of any tile size
+    lens = [158] * q  # 128 k-mers: K = 128 exactly
+    if case == "mixed_lengths":
+        lens = [int(x) for x in rng.integers(31, 159, q)]
+        lens[0] = 20  # no k-mer at all: every slot is the padding row
+    seqs = [rand_seq(rng, n) for n in lens]
+    per_query = [
+        cobs_row_indices(encode_seq(x), 31, s, h) for x in seqs
+    ]
+    packed, _ = opm.pack_row_indices(per_query, 128, s, h)
+    if case == "all_padding":
+        packed[:] = s
+    return didx, seqs, packed
 
-    def test_interpret_multi_hash(self):
-        rng = np.random.default_rng(9)
-        seq = rand_seq(rng, 100)
-        docs = [("a_Y1", [seq]), ("b_Y2", [rand_seq(rng, 150)])]
-        idx = cobs.build_classic_index(docs, term_size=31, num_hashes=2, fpr=0.05)
-        didx = cobs.to_device_index(idx)
-        words = jnp.asarray(opm.pad_device_words(np.asarray(didx.words), lane_words=opm.LANE_WORDS))
-        m = Matcher.from_device_index(didx, use_pallas=False)
-        row_idx, _ = m.rows_for_queries([seq], k_max=70)
-        want = opm.match_scores_xla(words, jnp.asarray(row_idx))
-        got = opm.match_scores_pallas(words, jnp.asarray(row_idx), interpret=True)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+REAL_WIDTH_CASES = ["exact_width", "mixed_lengths", "two_hashes", "all_padding"]
+
+
+@pytest.mark.parametrize("case", REAL_WIDTH_CASES)
+def test_xla_matches_oracle_at_real_width(case):
+    _check_real_width(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", REAL_WIDTH_CASES)
+def test_xla_matches_oracle_at_real_width_on_gpu(gpu, case):
+    _check_real_width(case)  # arrays land on the GPU, JAX's default device
+
+
+def _check_real_width(case):
+    didx, seqs, packed = _real_width_case(case)
+    words = jnp.asarray(opm.pad_device_words(didx.words))
+    assert words.shape == (didx.signature_size + 1, 68)
+    got = np.asarray(opm.match_scores_xla(words, jnp.asarray(packed)))
+    assert got.shape == (len(seqs), 68 * 32)
+    got = got[:, : didx.num_docs]
+    if case == "all_padding":
+        assert not got.any()
+        return
+    for i, seq in enumerate(seqs):
+        want, _ = oracle.score_query_codes(didx, encode_seq(seq))
+        np.testing.assert_array_equal(got[i], want)
 
 
 class TestPacking:
     def test_pad_device_words(self):
         w = np.arange(6, dtype=np.uint32).reshape(2, 3)
-        p = opm.pad_device_words(w, lane_words=opm.LANE_WORDS)
+        p = opm.pad_device_words(w, lane_words=128)
         assert p.shape == (3, 128)
         assert (p[2] == 0).all()
         np.testing.assert_array_equal(p[:2, :3], w)
@@ -94,41 +124,3 @@ class TestPacking:
     def test_pack_row_indices_overflow(self):
         with pytest.raises(ValueError):
             opm.pack_row_indices([np.zeros((5, 1), np.int64)], 3, 99)
-
-
-class TestMatchScoresPallasV2:
-    """Wave-pipelined kernel vs the XLA reference, interpret mode."""
-
-    def test_interpret_matches_xla(self):
-        rng = np.random.default_rng(5)
-        s, wp, q, k = 512, opm.LANE_WORDS, 11, 64
-        words = np.zeros((s + 1, wp), np.uint32)
-        words[:s] = rng.integers(0, 2**32, (s, wp), dtype=np.uint32)
-        row_idx = rng.integers(0, s + 1, (q, k)).astype(np.int32)
-        want = np.asarray(opm.match_scores_xla(jnp.asarray(words), jnp.asarray(row_idx)))
-        got = opm.match_scores_pallas_v2(
-            jnp.asarray(words), jnp.asarray(row_idx), interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got), want)
-
-    def test_interpret_large_k_multi_wave(self):
-        rng = np.random.default_rng(6)
-        s, wp, q, k = 256, opm.LANE_WORDS, 8, 128  # 4 waves of 32 per query
-        words = np.zeros((s + 1, wp), np.uint32)
-        words[:s] = rng.integers(0, 2**32, (s, wp), dtype=np.uint32)
-        row_idx = rng.integers(0, s + 1, (q, k)).astype(np.int32)
-        want = np.asarray(opm.match_scores_xla(jnp.asarray(words), jnp.asarray(row_idx)))
-        got = opm.match_scores_pallas_v2(
-            jnp.asarray(words), jnp.asarray(row_idx), interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got), want)
-
-    def test_padding_row_counts_zero(self):
-        s, wp, q, k = 64, opm.LANE_WORDS, 3, 32
-        words = np.zeros((s + 1, wp), np.uint32)
-        words[:s] = 0xFFFFFFFF
-        row_idx = np.full((q, k), s, np.int32)  # all padding row
-        got = opm.match_scores_pallas_v2(
-            jnp.asarray(words), jnp.asarray(row_idx), interpret=True
-        )
-        assert np.asarray(got).sum() == 0

@@ -75,3 +75,8 @@ class TestEndToEnd:
 class TestGoldenTestEntry:
     def test_run_golden_test(self, tmp_path):
         assert fixture_mod.run_golden_test(tmp_path / "wd")
+
+
+@pytest.mark.gpu
+def test_golden_fixture_on_gpu(gpu, tmp_path):
+    assert fixture_mod.run_golden_test(tmp_path)

@@ -39,9 +39,10 @@ class TestConfigKnobs:
         assert "no effect" not in caplog.text
 
     def test_reference_config_still_loads(self, caplog):
-        import yaml
+        from phylign_tpu.config import load_flat_yaml
 
-        ref = yaml.safe_load(open("/root/reference/config.yaml"))
+        with open("/root/reference/config.yaml") as f:
+            ref = load_flat_yaml(f.read())
         with caplog.at_level(logging.WARNING, logger="phylign_tpu.config"):
             cfg = Config.from_dict(ref)
         assert cfg.nb_best_hits == ref["nb_best_hits"]
